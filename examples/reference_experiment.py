@@ -2,7 +2,7 @@
 
 The reference workflow (README.md:14-35) is: initialise (or load) a body
 cloud -> run the Barnes-Hut simulation writing positions + quadtree dumps
--> render the dumps.  This script does the same through nbody_tpu, using
+-> render the dumps.  This script does the same through nbody, using
 the reference's committed 40,960-body golden fixtures when mounted, and
 renders with the scalable plotters (the produced files also feed the
 reference's own plot_quadtree.py / plot_2d.py unchanged).
@@ -14,7 +14,7 @@ import os
 import sys
 
 
-from nbody_tpu.cli import main as cli
+from nbody.cli import main as cli
 
 REF = os.environ.get(
     "NBODY_REFERENCE_DIR", "/root/reference/implementation"

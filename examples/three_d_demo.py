@@ -13,7 +13,7 @@ and renders it with the working 3D plotter.
 import os
 import sys
 
-from nbody_tpu.cli import main as cli
+from nbody.cli import main as cli
 
 
 def run(out_dir: str = "three_d_out", n_bodies: int = 4096) -> None:

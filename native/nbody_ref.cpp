@@ -1,10 +1,10 @@
-// Native host-side reference engine for nbody_tpu.
+// Native host-side reference engine for nbody.
 //
 // Role: where the reference implements its golden semantics natively
 // (C++/CUDA host tree build project.cu:575-591, CPU traversal 593-675,
 // dump writer 504-534), this library provides the same semantics as a
 // fast C library used for large-N parity testing and dump generation.
-// The TPU compute path (Pallas/XLA) never calls this; it exists so the
+// The device compute path (Pallas/XLA) never calls this; it exists so the
 // framework's conformance oracle runs at reference speed on 40K+ bodies
 // instead of Python speed.
 //
@@ -16,7 +16,7 @@
 // per-body DFS with theta acceptance (node_size/d < theta, d softened by
 // +1e-15) and zero-mass skip at 1e-15; semi-implicit Euler update.
 //
-// Exposed C ABI (consumed by nbody_tpu/utils/native.py via ctypes):
+// Exposed C ABI (consumed by nbody/utils/native.py via ctypes):
 //   nbody_bh_accelerations   — build + traverse, acc out
 //   nbody_naive_accelerations— O(N^2) no-softening reference
 //   nbody_tree_dump          — pre-order dump text (plot_quadtree format)

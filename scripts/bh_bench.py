@@ -9,7 +9,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from nbody_tpu.ops.bh_grouped import bh_accelerations_grouped
+from nbody.ops.bh_grouped import bh_accelerations_grouped
 
 G = 6.67e-11
 

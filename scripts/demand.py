@@ -1,8 +1,8 @@
 """Per-level traversal-demand calibration (sizes the frontier/list caps).
 
 Runs the grouped collector with ``fmul``x the engine's own frontier
-schedule (default 2x; 4x-peak-everywhere OOMs HBM at 512K+ — the
-per-level compaction sorts are [G, 8*cap] wide) and return_demand=True,
+schedule (default 2x; 4x-peak-everywhere runs out of device memory at
+512K+ — the per-level compaction sorts are [G, 8*cap] wide) and return_demand=True,
 printing max-over-groups opened-children demand per level plus
 approx/direct per-group maxima — the numbers behind frontier_schedule /
 cap_defaults in ops/bh_grouped.py and ops/bh3d.py.  Demand is counted
@@ -43,28 +43,28 @@ def run(n, dims, init="uniform", gs=2048, theta=0.5, dcm=None, fmul=2,
         pos = jnp.asarray(rng.uniform(-0.1, 0.1, (n, dims)), jnp.float32)
 
     if dims == 3:
-        from nbody_tpu.ops.bh3d import (
+        from nbody.ops.bh3d import (
             _collect_lists_3d as collect,
             bh3_accelerations_grouped as engine,
             direct_cell_max_default,
             frontier_peak_3d,
             frontier_schedule_3d,
         )
-        from nbody_tpu.ops.tree3d import build_octree as build
-        from nbody_tpu.ops.tree3d import default_max_depth3
+        from nbody.ops.tree3d import build_octree as build
+        from nbody.ops.tree3d import default_max_depth3
 
         md = default_max_depth3(n)
         dcm = dcm or direct_cell_max_default(n)
         kids = 8
         sched = frontier_schedule_3d(frontier_peak_3d(n), md, n)
     else:
-        from nbody_tpu.ops.bh_grouped import (
+        from nbody.ops.bh_grouped import (
             _collect_lists as collect,
             bh_accelerations_grouped as engine,
             frontier_peak,
             frontier_schedule,
         )
-        from nbody_tpu.ops.tree import build_quadtree as build
+        from nbody.ops.tree import build_quadtree as build
 
         md = 9
         dcm = dcm or 32
@@ -94,25 +94,6 @@ def run(n, dims, init="uniform", gs=2048, theta=0.5, dcm=None, fmul=2,
         direct_cap=4096, direct_cell_max=dcm, return_demand=True,
     )
     stats = out[3]
-    # merged-run demand: the runs evaluator merges the per-cell body
-    # ranges into contiguous runs (bh_grouped.merge_ranges) bounded by
-    # run_cap — count the post-merge runs per group here (numpy,
-    # exact) so run_cap is calibrated like every other cap
-    ranges = np.asarray(out[1])  # [G, D, 2] (start, count), 0-padded
-    run_demand = 0
-    for gi in range(ranges.shape[0]):
-        rg = ranges[gi]
-        rg = rg[rg[:, 1] > 0]
-        if not len(rg):
-            continue
-        rg = rg[np.argsort(rg[:, 0])]
-        ends = rg[:, 0] + rg[:, 1]
-        # a new run starts where the interval doesn't touch the
-        # running max end of everything before it
-        prev_end = np.maximum.accumulate(ends)[:-1]
-        run_demand = max(
-            run_demand, int(1 + np.sum(rg[1:, 0] > prev_end))
-        )
     fr = np.asarray(stats["frontier"])
     truncated = [
         lv + 1
@@ -125,8 +106,7 @@ def run(n, dims, init="uniform", gs=2048, theta=0.5, dcm=None, fmul=2,
         f"  engine schedule:                    {list(sched)}\n"
         f"  frontier demand entering levels 1..{md}: {fr.tolist()}\n"
         f"  approx max/group: {int(stats['approx'])}   "
-        f"direct max/group: {int(stats['direct'])}   "
-        f"merged runs max/group: {run_demand}"
+        f"direct max/group: {int(stats['direct'])}"
         + (
             f"\n  WARNING: demand TRUNCATED at levels {truncated} — "
             "re-run with a larger fmul"

@@ -1,14 +1,14 @@
-"""Slope-timed phase split of the grouped BH engines (2D and 3D).
+"""Phase split of the grouped BH engines (2D and 3D).
 
 Times nested prefixes of the pipeline (tree | +collect | +expand |
-full) by the slope method; differences give per-phase costs.
+full); differences give per-phase costs.  Each time is the median of
+``reps`` calls ended by ``block_until_ready`` after a compiling call.
 
 Usage: python scripts/phase_split.py n=262144,dims=3 [spec...]
 """
 
 import functools
 import sys
-import time
 
 import jax
 import jax.numpy as jnp
@@ -17,7 +17,7 @@ import numpy as np
 G = 6.67e-11
 
 
-def split(n, dims, gs=2048, ks=(1, 3), reps=2, collect=None, **kw):
+def split(n, dims, gs=2048, reps=5, collect=None, **kw):
     rng = np.random.default_rng(0)
     masses = jnp.asarray(
         10 ** rng.uniform(-1, np.log10(0.5), n), jnp.float32
@@ -27,16 +27,15 @@ def split(n, dims, gs=2048, ks=(1, 3), reps=2, collect=None, **kw):
         return jnp.asarray(rng.uniform(-0.1, 0.1, (n, dims)), jnp.float32)
 
     if dims == 3:
-        from nbody_tpu.ops.bh3d import (
+        from nbody.ops.bh3d import (
             _collect_lists_3d,
-            _superblock_pack_3d,
             bh3_accelerations_grouped,
             cap_defaults_3d,
             direct_cell_max_default,
             frontier_schedule_3d,
         )
-        from nbody_tpu.ops.bh_grouped import _expand_ranges_superblocks
-        from nbody_tpu.ops.tree3d import build_octree, default_max_depth3
+        from nbody.ops.bh_grouped import _expand_ranges_superblocks
+        from nbody.ops.tree3d import build_octree, default_max_depth3
 
         md = default_max_depth3(n)
         caps = cap_defaults_3d(n)
@@ -63,7 +62,7 @@ def split(n, dims, gs=2048, ks=(1, 3), reps=2, collect=None, **kw):
                 [],
             )
             if collect == "dense":
-                from nbody_tpu.ops.collect_dense3 import (
+                from nbody.ops.collect_dense3 import (
                     build_spatial_pyramid,
                     collect_lists_3d_dense,
                 )
@@ -85,19 +84,6 @@ def split(n, dims, gs=2048, ks=(1, 3), reps=2, collect=None, **kw):
                 )
             if depth == 1:
                 return lists[0][0, 0] + ranges[0, 0, 0].astype(jnp.float32)
-            if kw.get("eval_mode") == "runs":
-                from nbody_tpu.ops.bh_grouped import _expand_runs_tiles
-                from nbody_tpu.ops.experiments import merge_ranges
-
-                kt = kw.get("eval_k_tile") or 512  # engine auto (3D)
-                rc = kw.get("run_cap") or 512
-                merged, _ = merge_ranges(ranges, cap=rc)
-                tiles, n_t, _ = _expand_runs_tiles(
-                    merged, kt, caps["direct_body_cap"] // kt + 2 * rc
-                )
-                if depth == 2:
-                    return lists[0][0, 0] + tiles.astype(jnp.float32)[0, 0, 0]
-                raise ValueError
             sb_cap = caps["direct_body_cap"] // 8 + caps["direct_cap"]
             sb_idx, lo, hi, ovf2 = _expand_ranges_superblocks(
                 ranges, dcm, sb_cap
@@ -113,14 +99,14 @@ def split(n, dims, gs=2048, ks=(1, 3), reps=2, collect=None, **kw):
             **kw
         )
     else:
-        from nbody_tpu.ops.bh_grouped import (
+        from nbody.ops.bh_grouped import (
             _collect_lists,
             _expand_ranges_superblocks,
             bh_accelerations_grouped,
             cap_defaults,
             frontier_schedule,
         )
-        from nbody_tpu.ops.tree import build_quadtree
+        from nbody.ops.tree import build_quadtree
 
         md = 9
         caps = cap_defaults(gs, n)
@@ -148,19 +134,6 @@ def split(n, dims, gs=2048, ks=(1, 3), reps=2, collect=None, **kw):
             )
             if depth == 1:
                 return lists[0][0, 0] + ranges[0, 0, 0].astype(jnp.float32)
-            if kw.get("eval_mode") == "runs":
-                from nbody_tpu.ops.bh_grouped import _expand_runs_tiles
-                from nbody_tpu.ops.experiments import merge_ranges
-
-                kt = kw.get("eval_k_tile") or 256  # engine auto (2D)
-                rc = kw.get("run_cap") or 256
-                merged, _ = merge_ranges(ranges, cap=rc)
-                tiles, n_t, _ = _expand_runs_tiles(
-                    merged, kt, caps["direct_body_cap"] // kt + 2 * rc
-                )
-                if depth == 2:
-                    return lists[0][0, 0] + tiles.astype(jnp.float32)[0, 0, 0]
-                raise ValueError
             sb_cap = caps["direct_body_cap"] // 8 + caps["direct_cap"]
             sb_idx, lo, hi, ovf2 = _expand_ranges_superblocks(
                 ranges, 32, sb_cap
@@ -173,34 +146,15 @@ def split(n, dims, gs=2048, ks=(1, 3), reps=2, collect=None, **kw):
             bh_accelerations_grouped, g=G, theta=0.5, **kw
         )
 
-    def slope(fn):
-        @functools.partial(jax.jit, static_argnames=("k",))
-        def chain(p, k):
-            def body(c, _):
-                out = fn(c)
-                return c + out * 1e-30, None
+    def timed(fn):
+        from nbody.bench.headline import time_call
 
-            c, _ = jax.lax.scan(body, p, None, length=k)
-            return jnp.sum(c)
+        return time_call(jax.jit(fn), cloud(), reps=reps)[1]
 
-        k_lo, k_hi = ks
-        for k in (k_lo, k_hi):
-            float(chain(cloud(), k))
-        ts = {}
-        for k in (k_lo, k_hi):
-            best = 1e9
-            for _ in range(reps):
-                p = cloud()
-                t0 = time.perf_counter()
-                float(chain(p, k))
-                best = min(best, time.perf_counter() - t0)
-            ts[k] = best
-        return (ts[k_hi] - ts[k_lo]) / (k_hi - k_lo)
-
-    t_tree = slope(lambda p: jnp.broadcast_to(prefix(p, 0) * 1e-30, p.shape))
-    t_coll = slope(lambda p: jnp.broadcast_to(prefix(p, 1) * 1e-30, p.shape))
-    t_exp = slope(lambda p: jnp.broadcast_to(prefix(p, 2) * 1e-30, p.shape))
-    t_full = slope(lambda p: full(p, masses))
+    t_tree = timed(lambda p: jnp.broadcast_to(prefix(p, 0) * 1e-30, p.shape))
+    t_coll = timed(lambda p: jnp.broadcast_to(prefix(p, 1) * 1e-30, p.shape))
+    t_exp = timed(lambda p: jnp.broadcast_to(prefix(p, 2) * 1e-30, p.shape))
+    t_full = timed(lambda p: full(p, masses))
     print(
         f"N={n} dims={dims} gs={gs} {kw}: tree+sort {t_tree*1e3:.1f} | "
         f"collect {(t_coll-t_tree)*1e3:.1f} | "
@@ -212,17 +166,13 @@ def split(n, dims, gs=2048, ks=(1, 3), reps=2, collect=None, **kw):
 
 
 if __name__ == "__main__":
-    print("backend:", jax.default_backend(), file=sys.stderr)
+    print("devices:", jax.devices(), file=sys.stderr)
     for spec in sys.argv[1:]:
         parts = dict(kv.split("=") for kv in spec.split(","))
         n = int(parts.pop("n", 65536))
         dims = int(parts.pop("dims", 2))
         gs = int(parts.pop("gs", 2048))
-        ks = tuple(int(x) for x in parts.pop("ks", "1:3").split(":"))
-        reps = int(parts.pop("reps", 2))
-        mode = parts.pop("mode", None)
+        reps = int(parts.pop("reps", 5))
         coll = parts.pop("collect", None)
         kw = {k: int(v) for k, v in parts.items()}
-        if mode:
-            kw["eval_mode"] = mode
-        split(n, dims, gs=gs, ks=ks, reps=reps, collect=coll, **kw)
+        split(n, dims, gs=gs, reps=reps, collect=coll, **kw)

@@ -15,7 +15,8 @@ These are the numbers behind ``window_schedule_3d`` in
 ops/collect_dense3.py — the dense collector reads a [W, W, W] spatial
 slab per group per level instead of gathering scattered frontier rows
 (the reference's per-thread pointer-chasing DFS, project.cu:631-726,
-has no analogue of either; this is the TPU redesign of its traversal).
+has no analogue of either; this is the data-parallel redesign of its
+traversal).
 
 Usage: python scripts/windows.py n=262144,init=uniform [spec...]
 Keys: n, init(uniform|blobs), gs, theta, dcm, steps.
@@ -49,7 +50,7 @@ def _state(n, init, steps, theta, dims=3):
         import jax.numpy as jnp
 
         assert dims == 3, "steps>0 supported for dims=3 only"
-        from nbody_tpu.ops.bh3d import bh3_accelerations_grouped
+        from nbody.ops.bh3d import bh3_accelerations_grouped
 
         p = jnp.asarray(pos, jnp.float32)
         m = jnp.asarray(masses, jnp.float32)
@@ -62,8 +63,8 @@ def _state(n, init, steps, theta, dims=3):
 def run(n, init="uniform", gs=2048, theta=0.5, dcm=None, steps=0,
         dims=3):
     if dims == 3:
-        from nbody_tpu.ops.bh3d import direct_cell_max_default
-        from nbody_tpu.ops.tree3d import (
+        from nbody.ops.bh3d import direct_cell_max_default
+        from nbody.ops.tree3d import (
             build_octree as build,
             default_max_depth3,
         )
@@ -71,7 +72,7 @@ def run(n, init="uniform", gs=2048, theta=0.5, dcm=None, steps=0,
         md_default = default_max_depth3(n)
         dcm = dcm or direct_cell_max_default(n)
     else:
-        from nbody_tpu.ops.tree import build_quadtree as build
+        from nbody.ops.tree import build_quadtree as build
 
         md_default = 9
         dcm = dcm or 32

@@ -37,7 +37,7 @@ def cloud3(rng):
 
 
 def test_octree_invariants(cloud3):
-    from nbody_tpu.ops.tree3d import (
+    from nbody.ops.tree3d import (
         R3_CNT,
         R3_M,
         R3_MX,
@@ -81,7 +81,7 @@ def test_octree_invariants(cloud3):
 
 
 def test_morton3_cell_consistency(cloud3):
-    from nbody_tpu.ops.tree3d import morton_codes_3d, root_bounds_3d
+    from nbody.ops.tree3d import morton_codes_3d, root_bounds_3d
 
     pos, _, pos64, _ = cloud3
     bounds = root_bounds_3d(pos)
@@ -95,7 +95,7 @@ def test_morton3_cell_consistency(cloud3):
 
 
 def test_allpairs_kernel_3d(cloud3):
-    from nbody_tpu.ops.allpairs import allpairs_accelerations
+    from nbody.ops.allpairs import allpairs_accelerations
 
     pos, m, pos64, m64 = cloud3
     a = np.asarray(allpairs_accelerations(pos, m, g=G, interpret=True))
@@ -107,7 +107,7 @@ def test_allpairs_kernel_3d(cloud3):
 
 
 def test_grouped3_vs_dense(cloud3):
-    from nbody_tpu.ops.bh3d import bh3_accelerations_grouped
+    from nbody.ops.bh3d import bh3_accelerations_grouped
 
     pos, m, pos64, m64 = cloud3
     a, ovf = bh3_accelerations_grouped(
@@ -132,7 +132,7 @@ def test_grouped3_dead_level_skip_equivalence(cloud3, monkeypatch):
     reloaded per setting)."""
     import importlib
 
-    import nbody_tpu.ops.bh3d as bh3d
+    import nbody.ops.bh3d as bh3d
 
     pos, m, _, _ = cloud3
     out = {}
@@ -154,7 +154,7 @@ def test_grouped3_dead_level_skip_equivalence(cloud3, monkeypatch):
 
 @pytest.mark.slow
 def test_grouped3_theta_zero_converges(cloud3):
-    from nbody_tpu.ops.bh3d import bh3_accelerations_grouped
+    from nbody.ops.bh3d import bh3_accelerations_grouped
 
     pos, m, pos64, m64 = cloud3
     a = np.asarray(
@@ -168,58 +168,9 @@ def test_grouped3_theta_zero_converges(cloud3):
 
 
 @pytest.mark.slow
-def test_list_eval_pallas_3d_interpret(cloud3):
-    """The streaming kernel path in 3D (interpret mode) must match the
-    XLA fallback evaluation."""
-    from nbody_tpu.ops.bh3d import bh3_accelerations_grouped
-
-    pos, m, _, _ = cloud3
-    a_xla = np.asarray(
-        bh3_accelerations_grouped(pos, m, g=G, theta=0.5, use_pallas=False)
-    )
-    # interpret-mode pallas_call runs on CPU; _evaluate_pallas_3d imports
-    # the symbol inside the function, so patching the module suffices
-    import nbody_tpu.ops.list_eval as le
-
-    orig_grid = le.list_eval_pallas
-    orig_dyn = le.list_eval_dynamic
-    orig_runs = le.list_eval_runs
-
-    def interp_grid(*args, **kw):
-        kw["interpret"] = True
-        return orig_grid(*args, **kw)
-
-    def interp_dyn(*args, **kw):
-        kw["interpret"] = True
-        return orig_dyn(*args, **kw)
-
-    def interp_runs(*args, **kw):
-        kw["interpret"] = True
-        return orig_runs(*args, **kw)
-
-    try:
-        le.list_eval_pallas = interp_grid
-        le.list_eval_dynamic = interp_dyn
-        le.list_eval_runs = interp_runs
-        a_pl = np.asarray(
-            bh3_accelerations_grouped(
-                pos, m, g=G, theta=0.5, use_pallas=True,
-                split_eval=False,  # tight kernel parity; split has its
-                #                    own test (test_list_eval)
-            )
-        )
-    finally:
-        le.list_eval_pallas = orig_grid
-        le.list_eval_dynamic = orig_dyn
-        le.list_eval_runs = orig_runs
-    scale = np.abs(a_xla).max()
-    assert np.abs(a_pl - a_xla).max() / scale < 1e-5
-
-
-@pytest.mark.slow
 def test_simulation_3d_contract(tmp_path):
-    from nbody_tpu import SimConfig
-    from nbody_tpu.models.simulation import Simulation
+    from nbody import SimConfig
+    from nbody.models.simulation import Simulation
 
     cfg = SimConfig(
         n_bodies=512,
@@ -242,7 +193,7 @@ def test_simulation_3d_contract(tmp_path):
     assert all(len(r) == 5 for r in rows)
     assert len(rows) == 4 * 512  # step 0 + 3 steps
 
-    from nbody_tpu.bench import plots
+    from nbody.bench import plots
 
     out = plots.trajectories_3d(
         str(tmp_path / "positions.txt"), str(tmp_path / "p3.png")
@@ -253,9 +204,9 @@ def test_simulation_3d_contract(tmp_path):
 def test_simulation_3d_energy_drift():
     """Symplectic Euler on a soft 3D cloud: momentum is conserved to
     f32 roundoff (forces are antisymmetric pair sums)."""
-    from nbody_tpu import SimConfig
-    from nbody_tpu.models.simulation import Simulation
-    from nbody_tpu.physics import total_momentum
+    from nbody import SimConfig
+    from nbody.models.simulation import Simulation
+    from nbody.physics import total_momentum
 
     cfg = SimConfig(n_bodies=512, n_dim=3, n_steps=10, engine="naive", seed=3)
     sim = Simulation(cfg)
@@ -274,10 +225,10 @@ def test_sharded_3d_matches_single_device(rng):
 
     if jax.device_count() < 8:
         pytest.skip("needs 8 fake devices")
-    from nbody_tpu.config import MeshConfig, SimConfig
-    from nbody_tpu.models.simulation import Simulation
-    from nbody_tpu.parallel import make_mesh, make_sharded_step, shard_state
-    from nbody_tpu.rng import random_state
+    from nbody.config import MeshConfig, SimConfig
+    from nbody.models.simulation import Simulation
+    from nbody.parallel import make_mesh, make_sharded_step, shard_state
+    from nbody.rng import random_state
 
     cfg = SimConfig(
         n_bodies=1024, n_dim=3, n_steps=3, engine="barnes_hut", seed=5,
@@ -310,12 +261,12 @@ def test_sharded3_window_mode_matches_grouped(rng):
 
     if jax.device_count() < 8:
         pytest.skip("needs 8 fake devices")
-    from nbody_tpu.config import MeshConfig, SimConfig
-    from nbody_tpu.ops.bh3d import bh3_accelerations_grouped
-    from nbody_tpu.ops.tree3d import morton_codes_3d, root_bounds_3d
-    from nbody_tpu.parallel import make_mesh, make_sharded_step, shard_state
-    from nbody_tpu.physics import integrate
-    from nbody_tpu.state import make_state
+    from nbody.config import MeshConfig, SimConfig
+    from nbody.ops.bh3d import bh3_accelerations_grouped
+    from nbody.ops.tree3d import morton_codes_3d, root_bounds_3d
+    from nbody.parallel import make_mesh, make_sharded_step, shard_state
+    from nbody.physics import integrate
+    from nbody.state import make_state
 
     side = 12
     n = side**3  # 1728
@@ -362,7 +313,7 @@ def test_sharded3_window_mode_matches_grouped(rng):
 
 
 def test_make_state_rejects_bad_dims():
-    from nbody_tpu.state import make_state
+    from nbody.state import make_state
 
     with pytest.raises(ValueError):
         make_state(np.ones(4), np.ones((4, 4)), np.ones((4, 4)))
@@ -371,7 +322,7 @@ def test_make_state_rejects_bad_dims():
 
 def test_cli_run_3d(tmp_path, capsys):
     """CLI --dims 3 end-to-end: timing contract + five-column positions."""
-    from nbody_tpu.cli import main
+    from nbody.cli import main
 
     rc = main(
         [
@@ -395,7 +346,7 @@ def test_cli_run_3d(tmp_path, capsys):
 def test_cli_compare_3d(tmp_path, capsys):
     """3D compare: naive vs grouped octree BH from one init (checkEqual
     workflow, project.cu:1027-1047, generalised)."""
-    from nbody_tpu.cli import main
+    from nbody.cli import main
 
     rc = main(
         [
@@ -410,7 +361,7 @@ def test_cli_compare_3d(tmp_path, capsys):
 
 
 def test_cli_compare_3d_rejects_host_engines(tmp_path, capsys):
-    from nbody_tpu.cli import main
+    from nbody.cli import main
 
     rc = main(
         [
@@ -431,7 +382,7 @@ def test_cli_sweep_3d_strong(tmp_path, capsys, monkeypatch):
     if jax.device_count() < 2:
         pytest.skip("needs fake multi-device mesh")
     monkeypatch.chdir(tmp_path)
-    from nbody_tpu.cli import main
+    from nbody.cli import main
 
     rc = main(
         [
@@ -456,8 +407,8 @@ def test_metrics_csv_3d_tree_stats(tmp_path):
     tree_nodes/tree_max_depth observable, observations.txt:59-65)."""
     import csv
 
-    from nbody_tpu import SimConfig
-    from nbody_tpu.models.simulation import Simulation
+    from nbody import SimConfig
+    from nbody.models.simulation import Simulation
 
     cfg = SimConfig(
         n_bodies=256, n_dim=3, n_steps=2, engine="barnes_hut", seed=2,
@@ -475,8 +426,8 @@ def test_frontier_schedule_3d_covers_measured_demand():
     calibration measurements (uniform + two-blob collapsed; the round-3
     single-level ramp overflowed at 512K where N/dcm = 8^4 puts the
     termination spike astride l_t and l_t+1)."""
-    from nbody_tpu.ops.bh3d import cap_defaults_3d, frontier_schedule_3d
-    from nbody_tpu.ops.tree3d import default_max_depth3
+    from nbody.ops.bh3d import cap_defaults_3d, frontier_schedule_3d
+    from nbody.ops.tree3d import default_max_depth3
 
     # demand entering levels 1..max_depth, max over groups (gs=2048,
     # theta=0.5; see frontier_schedule_3d docstring)
@@ -498,10 +449,6 @@ def test_frontier_schedule_3d_covers_measured_demand():
             [8, 39, 108, 215, 965, 3672, 9608],
         ],
     }
-    # merged-run demand max/group (same calibration runs, post
-    # interval-union — bounds the runs evaluator's run_cap); the 256K
-    # blob peak 516 overflowed the old flat 512 default by one group
-    run_demand = {65536: 145, 262144: 516, 524288: 377, 1048576: 291}
     for n, profiles in measured.items():
         md = default_max_depth3(n)
         caps = cap_defaults_3d(n)
@@ -515,9 +462,9 @@ def test_frontier_schedule_3d_covers_measured_demand():
             # the probes behind these literals are 512K+-specific)
             assert caps["list_cap"] >= 10467 * 1.3  # 512K blobs, 1.3x
             assert caps["direct_cap"] >= 6368  # 512K dcm=64 probe bound
-        assert caps["run_cap"] >= run_demand[n] * 1.4, (
-            n, caps["run_cap"], run_demand[n],
-        )
+    # worst group after the first step of the seed-0 uniform 1M cloud
+    # (measured on the card: flung near-collision pairs grow the root box)
+    assert cap_defaults_3d(1 << 20)["list_cap"] >= 15997 * 1.25
 
 
 def test_frontier_schedule_2d_covers_measured_demand():
@@ -525,7 +472,7 @@ def test_frontier_schedule_2d_covers_measured_demand():
     calibration (the round-2 uniform-only calibration overflowed on the
     collapsed distribution at 64K and 1M — direct cells, approx list,
     and the max-depth frontier tail)."""
-    from nbody_tpu.ops.bh_grouped import cap_defaults, frontier_schedule
+    from nbody.ops.bh_grouped import cap_defaults, frontier_schedule
 
     measured = {
         65536: dict(
@@ -533,14 +480,14 @@ def test_frontier_schedule_2d_covers_measured_demand():
                 [4, 16, 64, 122, 276, 722, 56, 0, 0],      # uniform
                 [4, 12, 36, 44, 112, 304, 780, 1468, 60],  # blobs
             ],
-            approx=566, direct=2018, runs=75,
+            approx=566, direct=2018,
         ),
         1048576: dict(
             frontier=[
                 [4, 16, 64, 112, 224, 448, 1024, 2646, 224],
                 [4, 12, 37, 71, 139, 320, 816, 2104, 5104],
             ],
-            approx=5750, direct=1743, runs=166,
+            approx=5750, direct=1743,
         ),
     }
     md = 9
@@ -557,4 +504,3 @@ def test_frontier_schedule_2d_covers_measured_demand():
                 assert need <= sched[level], (n, level, demand, sched)
         assert caps["list_cap"] >= m["approx"] * 1.3, n
         assert caps["direct_cap"] >= m["direct"] * 1.2, n
-        assert caps["run_cap"] >= m["runs"] * 1.4, n

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.models import oracle
-from nbody_tpu.ops.barnes_hut import bh_accelerations
-from nbody_tpu.physics import pair_accelerations_dense
+from nbody.models import oracle
+from nbody.ops.barnes_hut import bh_accelerations
+from nbody.physics import pair_accelerations_dense
 
 G = 6.67e-11
 

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.models import oracle
-from nbody_tpu.ops.bh_grouped import bh_accelerations_grouped
-from nbody_tpu.physics import pair_accelerations_dense
+from nbody.models import oracle
+from nbody.ops.bh_grouped import bh_accelerations_grouped
+from nbody.physics import pair_accelerations_dense
 
 G = 6.67e-11
 

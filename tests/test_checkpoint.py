@@ -4,9 +4,9 @@
 
 import numpy as np
 
-from nbody_tpu import SimConfig, make_state
-from nbody_tpu.models.simulation import Simulation
-from nbody_tpu.utils.checkpoint import load_checkpoint, save_checkpoint
+from nbody import SimConfig, make_state
+from nbody.models.simulation import Simulation
+from nbody.utils.checkpoint import load_checkpoint, save_checkpoint
 
 
 def test_roundtrip(tmp_path):
@@ -55,7 +55,7 @@ def test_resume_continues_identically(tmp_path):
 
 def test_cli_resume(tmp_path, capsys):
     """--checkpoint-every + --resume through the CLI (SURVEY 5.4)."""
-    from nbody_tpu.cli import main
+    from nbody.cli import main
 
     out = str(tmp_path)
     ck = str(tmp_path / "checkpoint.npz")
@@ -69,13 +69,13 @@ def test_cli_resume(tmp_path, capsys):
         "--resume", ck, "--output-dir", out,
     ]) == 0
     # compare against a straight 6-step run
-    from nbody_tpu import SimConfig
-    from nbody_tpu.models.simulation import Simulation
+    from nbody import SimConfig
+    from nbody.models.simulation import Simulation
 
     sim = Simulation(SimConfig(n_bodies=32, n_steps=6, engine="naive",
                                seed=9))
     want, _ = sim.run_contract()
-    from nbody_tpu.utils.checkpoint import load_checkpoint
+    from nbody.utils.checkpoint import load_checkpoint
 
     # the resumed run rewrote the checkpoint? no — ck only written when
     # checkpoint_every set; verify via a fresh resumed Simulation instead
@@ -90,8 +90,8 @@ def test_cli_resume(tmp_path, capsys):
 
 def test_run_scan_trajectory():
     """Compiled trajectory capture equals the per-step contract loop."""
-    from nbody_tpu import SimConfig
-    from nbody_tpu.models.simulation import Simulation
+    from nbody import SimConfig
+    from nbody.models.simulation import Simulation
 
     cfg = SimConfig(n_bodies=48, n_steps=5, engine="naive", seed=2)
     sim_a = Simulation(cfg)

@@ -13,19 +13,19 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.ops.bh3d import (
+from nbody.ops.bh3d import (
     _collect_lists_3d,
     bh3_accelerations_grouped,
     cap_defaults_3d,
     direct_cell_max_default,
     frontier_schedule_3d,
 )
-from nbody_tpu.ops.collect_dense3 import (
+from nbody.ops.collect_dense3 import (
     build_spatial_pyramid,
     collect_lists_3d_dense,
     window_schedule_3d,
 )
-from nbody_tpu.ops.tree3d import build_octree, default_max_depth3
+from nbody.ops.tree3d import build_octree, default_max_depth3
 
 G = 6.67e-11
 
@@ -173,7 +173,7 @@ def test_resolve_collect_auto_gate():
     """The auto gate ships dense at N >= 256K (measured 1.3-1.9x wins,
     PERF.md round 5) and keeps the gather walk below (measured losses
     at 64K/128K); explicit modes pass through; junk rejects."""
-    from nbody_tpu.ops.bh3d import DENSE_COLLECT_MIN_N, _resolve_collect
+    from nbody.ops.bh3d import DENSE_COLLECT_MIN_N, _resolve_collect
 
     assert DENSE_COLLECT_MIN_N == 262144
     assert _resolve_collect(None, 262144) == "dense"
@@ -227,7 +227,7 @@ def test_frontier_peak_3d_band():
     """The 4x cap scale moves ONLY the md-boundary band (92K, 143K]
     where a uniform 128K cloud persistently overflowed under the old
     3x scale (PERF.md round 5); every other tier is pinned."""
-    from nbody_tpu.ops.bh3d import frontier_peak_3d
+    from nbody.ops.bh3d import frontier_peak_3d
 
     assert frontier_peak_3d(65536) == 8192
     assert frontier_peak_3d(131072) == 16384  # was 8192: the squeeze
@@ -241,7 +241,7 @@ def test_default_group_size3_band():
     (same-invocation A/Bs, PERF.md round 5: 256K uniform 1.36x, blobs
     1.49x, 512K 1.06x; 1M measured a LOSS so the band closes at the
     quarter-split boundary) and 2048 everywhere else."""
-    from nbody_tpu.ops.bh3d import default_group_size3
+    from nbody.ops.bh3d import default_group_size3
 
     assert default_group_size3(65536) == 2048
     assert default_group_size3(262143) == 2048
@@ -261,11 +261,11 @@ def test_dense_engine_accel_parity(blobs):
     n = 16384
     m, p = _cloud(n, seed=1, blobs=blobs)
     ag, og = bh3_accelerations_grouped(
-        p, m, g=G, theta=0.5, use_pallas=False,
+        p, m, g=G, theta=0.5,
         collect="gather", return_diagnostics=True,
     )
     ad, od = bh3_accelerations_grouped(
-        p, m, g=G, theta=0.5, use_pallas=False,
+        p, m, g=G, theta=0.5,
         collect="dense", return_diagnostics=True,
     )
     assert int(np.asarray(og).sum()) == 0

@@ -14,9 +14,9 @@ import jax
 import numpy as np
 import pytest
 
-from nbody_tpu import SimConfig, make_state
-from nbody_tpu.parallel import make_mesh, make_mesh_2d, make_sharded_step
-from nbody_tpu.parallel.memory import (
+from nbody import SimConfig, make_state
+from nbody.parallel import make_mesh, make_mesh_2d, make_sharded_step
+from nbody.parallel.memory import (
     collective_inventory,
     comm_bytes_per_step,
     tree_bytes,
@@ -161,7 +161,7 @@ def test_baseline_records_carry_comm_and_projection():
     """Round-4 missing #1/#2: configs 4/5 records must be
     self-describing — per-point comm bytes, the fake-mesh note, and a
     real-hardware projection derived from the devices=1 anchor."""
-    from nbody_tpu.bench.baseline import (
+    from nbody.bench.baseline import (
         FAKE_MESH_NOTE,
         _annotate_comm_and_projection,
     )
@@ -177,6 +177,7 @@ def test_baseline_records_carry_comm_and_projection():
             "n": 262144,
             "step_seconds": 0.028,
             "tree_build_seconds": 0.003,
+            "device_kind": "NVIDIA H100 80GB HBM3",
         },
     }
     _annotate_comm_and_projection(rec, weak=False)

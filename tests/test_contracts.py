@@ -12,8 +12,8 @@ import re
 import numpy as np
 import pytest
 
-from nbody_tpu.models.oracle import AdaptiveQuadtree
-from nbody_tpu.utils.textio import (
+from nbody.models.oracle import AdaptiveQuadtree
+from nbody.utils.textio import (
     PositionsWriter,
     cxx_ostream,
     cxx_to_string,
@@ -152,7 +152,7 @@ def test_dump_negative_encoding_single_occupant_max_depth():
 
 def test_check_equal(capsys):
     """checkEqual verdict contract (project.cu:1027-1047)."""
-    from nbody_tpu.utils.textio import check_equal
+    from nbody.utils.textio import check_equal
 
     a = np.zeros((3, 2))
     assert check_equal(a, a + 1e-12, "final positions")

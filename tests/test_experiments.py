@@ -8,7 +8,7 @@ the formulations remain reusable.
 import jax.numpy as jnp
 import numpy as np
 
-from nbody_tpu.ops.experiments import expand_runs_superblocks, merge_ranges
+from nbody.ops.experiments import expand_runs_superblocks, merge_ranges
 
 
 def test_merge_ranges_interval_union(rng):

@@ -11,8 +11,8 @@ HBM-scale analogue of the reference's fits-in-48KB shared-memory gate
 import numpy as np
 import pytest
 
-from nbody_tpu import SimConfig, make_state
-from nbody_tpu.parallel import (
+from nbody import SimConfig, make_state
+from nbody.parallel import (
     choose_bh_mode,
     make_mesh,
     make_sharded_step,
@@ -29,7 +29,7 @@ def test_tree_bytes_matches_built_tree():
     """The model's tree term equals the bytes of the arrays
     build_quadtree actually allocates (levels + raw, all pyramid
     levels)."""
-    from nbody_tpu.ops.tree import build_quadtree
+    from nbody.ops.tree import build_quadtree
 
     n, depth = 1024, 6
     rng = np.random.default_rng(0)
@@ -44,7 +44,7 @@ def test_tree_bytes_matches_built_tree():
 
 
 def test_tree_bytes_matches_built_octree():
-    from nbody_tpu.ops.tree3d import build_octree
+    from nbody.ops.tree3d import build_octree
 
     n, depth = 1024, 4
     rng = np.random.default_rng(0)
@@ -77,11 +77,16 @@ def test_sharded_sources_scale_with_devices():
     assert abs(s16 * 2 - s8) <= 2 * rows
 
 
+# an 80 GB card's budget, passed explicitly: the CPU reports no memory
+# limit of its own
+HBM = 80 * 10**9
+
+
 def test_gate_decisions():
     """Grouped while the replicated cloud fits the budget; sharded when
     it doesn't; 3D picks the octree variants."""
     small = SimConfig(n_bodies=65536)
-    assert choose_bh_mode(small, 8) == "dp_barnes_hut_grouped"
+    assert choose_bh_mode(small, 8, hbm_bytes=HBM) == "dp_barnes_hut_grouped"
 
     # shrink the budget so 64K bodies no longer "fit" -> sharded
     tiny = tree_bytes(small) * 4 + 65536 * 8
@@ -91,7 +96,9 @@ def test_gate_decisions():
     )
 
     small3 = SimConfig(n_bodies=65536, n_dim=3, max_depth=5)
-    assert choose_bh_mode(small3, 8) == "dp_barnes_hut_grouped3"
+    assert (
+        choose_bh_mode(small3, 8, hbm_bytes=HBM) == "dp_barnes_hut_grouped3"
+    )
     tiny3 = tree_bytes(small3) * 4 + 65536 * 8
     assert (
         choose_bh_mode(small3, 8, hbm_bytes=tiny3)
@@ -110,8 +117,11 @@ def test_config_hbm_bytes_drives_library_gate():
     to sharded; an explicit ``hbm_bytes=`` argument still wins."""
     cfg = SimConfig(n_bodies=65536)
     tiny = tree_bytes(cfg) * 4 + 65536 * 8
-    # default config (hbm_bytes=None) -> 16 GiB default -> grouped
-    assert choose_bh_mode(cfg, 8) == "dp_barnes_hut_grouped"
+    # a card-sized budget through the config -> grouped
+    assert (
+        choose_bh_mode(cfg.replace(hbm_bytes=HBM), 8)
+        == "dp_barnes_hut_grouped"
+    )
     # budget through the config alone -> sharded
     assert (
         choose_bh_mode(cfg.replace(hbm_bytes=tiny), 8)
@@ -131,6 +141,35 @@ def test_config_hbm_bytes_drives_library_gate():
     assert step is not None  # built without error through the gate
 
 
+def test_gate_without_budget_on_cpu_is_an_error():
+    """No silent default: without hbm_bytes the gate reads the card's
+    memory limit, and a device that reports none (the CPU) is an error
+    that names the knob."""
+    with pytest.raises(ValueError, match="hbm_bytes"):
+        choose_bh_mode(SimConfig(n_bodies=65536), 8)
+
+
+@pytest.mark.parametrize("dims", [2, 3])
+def test_gate_flips_at_the_explicit_budget(dims):
+    """The decision is the budget arithmetic, at its edge: grouped while
+    tree + replicated sources fit SOURCE_BUDGET_FRACTION of hbm_bytes,
+    sharded one byte below."""
+    from nbody.parallel.memory import SOURCE_BUDGET_FRACTION
+
+    cfg = SimConfig(n_bodies=1 << 20, n_dim=dims)
+    need = per_chip_bytes(cfg, 4, "grouped")
+    suffix = "3" if dims == 3 else ""
+    edge = int(need / SOURCE_BUDGET_FRACTION)  # budget == need
+    assert (
+        choose_bh_mode(cfg, 4, hbm_bytes=edge + 4)
+        == f"dp_barnes_hut_grouped{suffix}"
+    )
+    assert (
+        choose_bh_mode(cfg, 4, hbm_bytes=edge - 8)
+        == f"dp_barnes_hut_sharded{suffix}"
+    )
+
+
 @pytest.mark.slow
 def test_auto_mode_runs_and_matches_explicit():
     """make_sharded_step(mode='auto') resolves through the gate and the
@@ -141,7 +180,7 @@ def test_auto_mode_runs_and_matches_explicit():
     positions = rng.uniform(-0.1, 0.1, (n, 2)).astype(np.float32)
     velocities = rng.uniform(-1e-4, 1e-4, (n, 2)).astype(np.float32)
     mesh = make_mesh(8)
-    cfg = SimConfig(n_bodies=n)
+    cfg = SimConfig(n_bodies=n, hbm_bytes=HBM)
 
     got = {}
     for mode in ("auto", "dp_barnes_hut_grouped"):

@@ -1,13 +1,13 @@
 """Native C++ reference engine vs the Python oracle (both implement the
 reference semantics independently — agreement at f64 precision is strong
-evidence both are right) and vs the TPU engines."""
+evidence both are right) and vs the JAX engines."""
 
 import numpy as np
 import pytest
 
-from nbody_tpu.models import oracle
+from nbody.models import oracle
 
-native = pytest.importorskip("nbody_tpu.utils.native")
+native = pytest.importorskip("nbody.utils.native")
 
 try:
     native.load()

@@ -6,10 +6,10 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu import SimConfig, make_state
-from nbody_tpu.physics import pair_accelerations_dense
-from nbody_tpu.utils.debug import checked_accel, validate_state
-from nbody_tpu.utils.metrics import MetricsWriter, tree_stats
+from nbody import SimConfig, make_state
+from nbody.physics import pair_accelerations_dense
+from nbody.utils.debug import checked_accel, validate_state
+from nbody.utils.metrics import MetricsWriter, tree_stats
 
 G = 6.67e-11
 
@@ -43,7 +43,7 @@ def test_metrics_csv_through_run_contract(tmp_path):
     """--metrics-csv runs on the tree engine must produce non-empty
     tree_nodes / tree_max_depth columns (the integration the reference's
     dev log tracks by hand, observations.txt:59-65)."""
-    from nbody_tpu.models.simulation import Simulation
+    from nbody.models.simulation import Simulation
 
     cfg = SimConfig(
         n_bodies=64,
@@ -74,7 +74,7 @@ def test_energy_finite_and_conserved_at_scale(tmp_path):
     (round-2 verdict item 6: no NaN energy at flagship N) and drift only
     slightly across the run (conserved-quantity reasoning, reference
     report pp.6 / observations.txt tree-collapse narrative)."""
-    from nbody_tpu.models.simulation import Simulation
+    from nbody.models.simulation import Simulation
 
     # Jittered grid: bounded minimum separation.  A uniform-random cloud
     # contains tight pairs whose orbital period no reasonable dt
@@ -117,7 +117,7 @@ def test_energy_finite_and_conserved_at_scale(tmp_path):
 
 def test_potential_energy_scalable_matches_dense():
     """The chunked path must agree with the dense diagnostic."""
-    from nbody_tpu.physics import (
+    from nbody.physics import (
         potential_energy,
         potential_per_body_chunked,
     )
@@ -174,33 +174,8 @@ def test_checked_accel_flags_nonfinite():
     assert np.isfinite(np.asarray(acc)).all()
 
 
-def test_occupancy_model():
-    from nbody_tpu.utils.occupancy import (
-        allpairs_tiles,
-        resolve_tiles,
-        tree_fits_vmem,
-    )
-
-    cfg = allpairs_tiles(65536)
-    assert cfg.target_block % 8 == 0
-    assert cfg.source_block % 128 == 0
-    assert cfg.working_set_bytes <= 16 * 1024 * 1024
-    # the measured-best config at the flagship N (see allpairs_tiles doc)
-    assert (cfg.target_block, cfg.source_block) == (512, 2048)
-    # the hot path consults the model (None = auto) and honors overrides
-    assert resolve_tiles(65536) == (512, 2048)
-    assert resolve_tiles(65536, 256, None) == (256, 2048)
-    assert resolve_tiles(65536, None, 1024) == (512, 1024)
-    # small problems shrink within budget
-    tb, sb = resolve_tiles(1024)
-    assert tb <= 512 and 3 * tb * sb * 4 <= 16 * 1024 * 1024
-    # the reference's depth cap always fits on-chip; depth 12 does not
-    assert tree_fits_vmem(9)
-    assert not tree_fits_vmem(12)
-
-
 def test_format_bodies():
-    from nbody_tpu.utils.textio import format_bodies
+    from nbody.utils.textio import format_bodies
 
     out = format_bodies([1.5], [[0.25, -0.5]], [[1e-4, 0.0]])
     assert out.splitlines() == [
@@ -218,9 +193,9 @@ def test_adaptive_caps_retry(tmp_path, capsys):
     the larger caps from the start, and overflow is not reported."""
     import numpy as np
 
-    from nbody_tpu import SimConfig
-    from nbody_tpu.models.simulation import Simulation
-    from nbody_tpu.rng import random_state
+    from nbody import SimConfig
+    from nbody.models.simulation import Simulation
+    from nbody.rng import random_state
 
     # a frontier cap far below demand at this N forces overflow
     base = dict(
@@ -235,7 +210,7 @@ def test_adaptive_caps_retry(tmp_path, capsys):
     err = capsys.readouterr().err
     assert "retrying with 4x caps" in err
 
-    from nbody_tpu.models.engines import resolved_caps
+    from nbody.models.engines import resolved_caps
 
     caps4 = {k: 4 * v for k, v in resolved_caps(cfg).items()}
     cfg_big = SimConfig(**{**base, **caps4})

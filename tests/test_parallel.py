@@ -1,7 +1,7 @@
-"""Multi-chip sharded steps vs the single-device step (8 fake CPU devices).
+"""Multi-card sharded steps vs the single-device step (8 fake CPU devices).
 
 The reference's scaling experiments vary threads on one GPU; here the
-equivalent axis is chips.  Every sharded mode must reproduce the
+equivalent axis is cards.  Every sharded mode must reproduce the
 single-device trajectory (the reference's checkEqual methodology,
 project.cu:1027-1047, at f32 tolerance).
 """
@@ -11,15 +11,15 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu import SimConfig, make_state
-from nbody_tpu.parallel import (
+from nbody import SimConfig, make_state
+from nbody.parallel import (
     make_mesh,
     make_mesh_2d,
     make_sharded_step,
     shard_state,
 )
-from nbody_tpu.physics import integrate, pair_accelerations_dense
-from nbody_tpu.ops.barnes_hut import bh_accelerations
+from nbody.physics import integrate, pair_accelerations_dense
+from nbody.ops.barnes_hut import bh_accelerations
 
 G = 6.67e-11
 N = 512
@@ -41,7 +41,7 @@ def _single_device_reference(cloud, n_steps, engine="allpairs"):
         if engine == "allpairs":
             acc = pair_accelerations_dense(state.positions, state.masses, g=G)
         elif engine == "barnes_hut_grouped":
-            from nbody_tpu.ops.bh_grouped import bh_accelerations_grouped
+            from nbody.ops.bh_grouped import bh_accelerations_grouped
 
             acc = bh_accelerations_grouped(
                 state.positions, state.masses, g=G, theta=0.5,
@@ -108,9 +108,9 @@ def test_sharded_window_mode_matches_grouped(n_dev):
     separations keep that approximation-class difference small and
     assertable.  Chips are seeded with Morton-contiguous slabs.
     """
-    from nbody_tpu.config import MeshConfig
-    from nbody_tpu.ops.bh_grouped import bh_accelerations_grouped
-    from nbody_tpu.ops.tree import morton_codes, root_bounds
+    from nbody.config import MeshConfig
+    from nbody.ops.bh_grouped import bh_accelerations_grouped
+    from nbody.ops.tree import morton_codes, root_bounds
 
     side = 48
     n = side * side
@@ -202,3 +202,53 @@ def test_sharded_overflow_surfaces(cloud):
     state = shard_state(make_state(masses, positions, velocities), mesh)
     state = step(state)
     assert int(np.asarray(state.overflow)) == 0
+
+
+@pytest.mark.parametrize("mode", ["dp_allpairs", "ring_allpairs", "dp2d_allpairs"])
+def test_allpairs_modes_bounded_memory(mode):
+    """The sharded all-pairs modes sum pairs in [chunk, Ns] blocks (the
+    kernel on the card, the chunked XLA sum here): at 64K bodies over 8
+    devices a dense [Nt, Ns, 2] pair array would be 4 GiB per device;
+    the compiled step's temporaries stay an eighth of that."""
+    n = 65536
+    cfg = SimConfig(n_bodies=n, engine="allpairs")
+    mesh = make_mesh_2d(4, 2) if mode == "dp2d_allpairs" else make_mesh(8)
+    step = make_sharded_step(cfg, mesh, mode)
+    state = make_state(
+        np.ones(n, np.float32),
+        np.zeros((n, 2), np.float32),
+        np.zeros((n, 2), np.float32),
+    )
+    if mode != "dp2d_allpairs":
+        state = shard_state(state, mesh)
+    temp = step.lower(state).compile().memory_analysis().temp_size_in_bytes
+    dense = n * n * 2 * 4 // 8  # per device
+    assert temp < dense // 8
+
+
+@pytest.mark.parametrize("dims,n", [(2, 16384), (3, 8192)])
+def test_sharded_window_covers_ring_ends(dims, n):
+    """The ring halos of the first and last device wrap around the
+    Morton order.  Their windows must still be contiguous, or those two
+    devices fall back to aggregating every close cell: caps overflow at
+    the defaults and, in 3D, forces of close pairs go wrong.  The sharded
+    mode must match the replicated grouped mode's forces on all 4
+    devices, with no overflow."""
+    from chip_smoke import grid_shape, jittered_grid
+    from nbody.config import MeshConfig
+
+    m, p, v = jittered_grid(grid_shape(n, dims))
+    cfg = SimConfig(
+        n_bodies=n, n_dim=dims, dt=0.05, engine="barnes_hut",
+        mesh=MeshConfig(dp=4),
+    )
+    mesh = make_mesh(4)
+    sfx = "3" if dims == 3 else ""
+    dv = {}
+    for mode in ("grouped", "sharded"):
+        step = make_sharded_step(cfg, mesh, f"dp_barnes_hut_{mode}{sfx}")
+        state = step(shard_state(make_state(m, p, v), mesh))
+        assert int(state.overflow) == 0, mode
+        dv[mode] = np.asarray(state.velocities) - v
+    err = np.abs(dv["sharded"] - dv["grouped"]).max(axis=1)
+    assert err.max() < 2e-2 * np.abs(dv["grouped"]).max()

@@ -5,9 +5,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu import SimConfig, integrate, make_state, total_momentum
-from nbody_tpu.models import oracle
-from nbody_tpu.physics import pair_accelerations_dense
+from nbody import SimConfig, integrate, make_state, total_momentum
+from nbody.models import oracle
+from nbody.physics import pair_accelerations_dense
 
 G = 6.67e-11
 
@@ -88,7 +88,7 @@ def test_float64_requires_x64_flag():
     (the reference is all-fp64, project.cu:38-43)."""
     import jax
 
-    from nbody_tpu.models.simulation import Simulation
+    from nbody.models.simulation import Simulation
 
     if jax.config.jax_enable_x64:
         pytest.skip("x64 enabled in this environment")
@@ -99,7 +99,7 @@ def test_float64_requires_x64_flag():
 def test_bfloat16_smoke():
     """bf16 runs end-to-end (accuracy is reduced; it exists for memory-
     bound exploration, not parity)."""
-    from nbody_tpu.models.simulation import Simulation
+    from nbody.models.simulation import Simulation
 
     sim = Simulation(SimConfig(n_bodies=32, n_steps=2, engine="naive",
                                dtype="bfloat16"))

@@ -4,11 +4,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from nbody_tpu.models.oracle import (
+from nbody.models.oracle import (
     AdaptiveQuadtree,
     compute_root_bounds,
 )
-from nbody_tpu.ops.tree import (
+from nbody.ops.tree import (
     build_quadtree,
     level_cell_size,
     morton_codes,
@@ -93,7 +93,7 @@ def test_pyramid_counts_match_adaptive_structure(cloud):
     mass_lv = [np.asarray(lv.mass) for lv in tree.levels]
 
     # walk the oracle tree, tracking (level, morton cell)
-    from nbody_tpu.models.oracle import CHILD0, TOTAL_MASS
+    from nbody.models.oracle import CHILD0, TOTAL_MASS
 
     def visit(node_index, level, cell):
         node = oracle_tree.nodes[node_index]
